@@ -1,4 +1,4 @@
-"""echopype_tpu: TPU-native ocean sonar (echosounder) data processing.
+"""echopype_tpu: JAX-native ocean sonar (echosounder) data processing.
 
 A ground-up JAX/XLA/Pallas rebuild with the capabilities of echopype
 (reference: OSOceanAcoustics/echopype): convert raw instrument files into the

@@ -167,7 +167,7 @@ def compress_pulse(backscatter: DataArray, chirp: dict, precision: str = "float6
     """Matched-filter pulse compression over [channel, ping, range, beam].
 
     precision="float64" is the exact host path (the compute_Sv opt-in);
-    "float32" (the compute_Sv default) runs the device MXU Toeplitz kernel
+    "float32" (the compute_Sv default) runs the device Toeplitz kernel
     (budget in docs/PERFORMANCE.md).
     """
     ch_vals = [str(c) for c in backscatter.coords["channel"].values]

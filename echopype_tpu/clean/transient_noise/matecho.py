@@ -5,7 +5,7 @@ Capability parity: echopype/clean/transient_noise/transient_matecho.py
 whose deep-window linear-mean Sv exceeds a local percentile + delta_db.
 Returned mask: True = VALID (keep).
 
-TPU-first rework (round 3): the default path is a vectorized windowed
+Vectorized rework (round 3): the default path is a vectorized windowed
 kernel — sliding-min bottom via a C minimum filter, per-ping deep means via
 row-prefix sums, and the local percentile via tiled histogram CDFs (no
 per-ping Python loop; scales to 1e6+ pings).  The histogram quantizes the

@@ -41,7 +41,7 @@ def uniform_grid(depth: np.ndarray):
     """[C, P, R] depth -> the shared [C, R] grid when pings agree, else None.
 
     Instrument depth grids are almost always ping-invariant per channel; the
-    MXU band-matmul window kernels require it (the gather kernels do not).
+    band-matmul window kernels require it (the gather kernels do not).
     """
     if depth.ndim != 3:
         return None
@@ -65,7 +65,7 @@ def pool_Sv_nanmean(
     sv, depth: [C, P, R].  Output NaN where the window would extend outside
     the valid depth/ping domain (pool_Sv validity rules, utils.py:75-85).
     Runs as one jit kernel on the device (ops/windows.py): band-matmul on the
-    MXU when the depth grid is ping-invariant, cumsum+gather otherwise.
+    banded matmuls when the depth grid is ping-invariant, cumsum+gather otherwise.
     """
     from ..ops.windows import (
         grid_window_halo,
@@ -81,7 +81,7 @@ def pool_Sv_nanmean(
         if members is not None:
             # f64-exact membership/validity resolved on host (reference
             # compares in float64; window edges on round-number grids land
-            # exactly on d±bin) — integer bounds feed the MXU kernel
+            # exactly on d±bin) — integer bounds feed the matmul kernel
             lo, hi, v_r, halo = members
             out = pool_sv_nanmean_grid_idx_device(
                 np.asarray(sv, dtype="f4"),
@@ -165,7 +165,7 @@ def downsample_upsample_along_depth(sv: np.ndarray, depth: np.ndarray, depth_bin
     grid = uniform_grid(depth)
     if grid is not None:
         # left-closed binning on the shared grid; both directions run as
-        # membership-matrix matmuls on the MXU
+        # membership-matrix matmuls
         idx_grid = np.clip(np.digitize(grid, edges) - 1, 0, n_b - 1).astype("i4")
         down, up = downsample_upsample_grid_device(
             np.asarray(sv, dtype="f4"), idx_grid, int(n_b)

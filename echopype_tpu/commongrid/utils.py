@@ -8,7 +8,6 @@ from __future__ import annotations
 import re
 
 import numpy as np
-import pandas as pd
 
 from ..ops.binning import bin_index_np, binned_mean_1d
 from ..utils.geodesy import pairwise_distance_nmi
@@ -70,45 +69,96 @@ def _setup_and_validate(ds_Sv: Dataset, range_var: str, range_bin: str, closed: 
     return ds_Sv, range_bin_val
 
 
+_TIMEDELTA_UNIT_NS = {
+    "d": 86_400 * 10**9, "day": 86_400 * 10**9, "days": 86_400 * 10**9,
+    "h": 3_600 * 10**9, "hr": 3_600 * 10**9, "hour": 3_600 * 10**9,
+    "hours": 3_600 * 10**9,
+    "m": 60 * 10**9, "min": 60 * 10**9, "minute": 60 * 10**9,
+    "minutes": 60 * 10**9,
+    "s": 10**9, "sec": 10**9, "second": 10**9, "seconds": 10**9,
+    "ms": 10**6, "milli": 10**6, "millis": 10**6, "millisecond": 10**6,
+    "milliseconds": 10**6,
+    "us": 10**3, "micro": 10**3, "micros": 10**3, "microsecond": 10**3,
+    "microseconds": 10**3,
+    "ns": 1, "nano": 1, "nanos": 1, "nanosecond": 1, "nanoseconds": 1,
+}
+_TIMEDELTA_TERM = re.compile(r"\s*(\d+(?:\.\d*)?|\.\d+)\s*([a-zA-Z]+)")
+
+
+def _timedelta_ns(ping_time_bin: str) -> int:
+    """'20s' / '0.5min' / '1h30min' -> integer nanoseconds (pd.Timedelta's
+    string form, without pandas).  Units are case-insensitive, as pandas
+    accepts the deprecated upper-case 'S'/'H'/'D' spellings."""
+    if not isinstance(ping_time_bin, str):
+        raise TypeError("ping_time_bin must be a string such as '20s'")
+    text = ping_time_bin.strip()
+    total, pos = 0, 0
+    for m in _TIMEDELTA_TERM.finditer(text):
+        if m.start() != pos:
+            break
+        unit = _TIMEDELTA_UNIT_NS.get(m.group(2).lower())
+        if unit is None:
+            raise ValueError(f"invalid time unit in ping_time_bin {ping_time_bin!r}")
+        num = m.group(1)
+        whole, _, frac = num.partition(".")
+        ns = int(whole or 0) * unit
+        if frac:
+            ns += int(frac) * unit // 10 ** len(frac)
+        total += ns
+        pos = m.end()
+    if pos == 0 or text[pos:].strip():
+        raise ValueError(f"could not parse ping_time_bin {ping_time_bin!r}")
+    if total <= 0:
+        raise ValueError(f"ping_time_bin must be positive, got {ping_time_bin!r}")
+    return total
+
+
 def ping_time_bin_edges(ping_time: np.ndarray, ping_time_bin: str) -> np.ndarray:
     """Bin edges matching pandas resample semantics (commongrid/api.py:117-124).
 
-    Resample generates one bin per freq interval from the origin-floored start
-    through the last ping; the final right edge is appended.
+    pandas' ``Series.resample(freq)`` with its defaults (closed='left',
+    origin='start_day') floors the first ping onto the grid of ``freq``
+    steps from midnight of its day and makes one bin per step through the
+    bin holding the last ping; the final right edge is appended.
     """
-    idx = pd.DatetimeIndex(np.asarray(ping_time, dtype="datetime64[ns]"))
-    s = pd.Series(np.zeros(len(idx)), index=idx)
-    d_index = s.resample(ping_time_bin).first().index
-    edges = d_index.union([d_index[-1] + pd.Timedelta(ping_time_bin)])
-    return np.asarray(edges.values, dtype="datetime64[ns]")
+    t = np.asarray(ping_time, dtype="datetime64[ns]")
+    t = t[~np.isnat(t)].astype("i8")
+    if t.size == 0:
+        raise ValueError("ping_time holds no valid timestamps")
+    step = _timedelta_ns(ping_time_bin)
+    first, last = int(t.min()), int(t.max())
+    day = 86_400 * 10**9
+    origin = first - first % day
+    start = first - (first - origin) % step
+    n_bins = (last - start) // step + 1
+    edges = start + np.arange(n_bins + 1, dtype="i8") * step
+    return edges.astype("datetime64[ns]")
 
 
 def parse_time_bin_to_value_unit(ping_time_bin: str):
     """'20s' -> (20, 'second'), for cell_methods attrs.
 
-    Exactly the reference's algorithm (commongrid/utils.py:654-698):
-    pd.Timedelta resolution_string picks the most granular unit, the value
-    is the integer count of that unit ('0.5min' -> (30, 'second')), and the
-    unit labels come from its timedelta_units map (singular; note its us/ns
-    entries deliberately map to millisecond).
+    The reference's algorithm (commongrid/utils.py:654-698) without pandas:
+    pd.Timedelta's resolution_string picks the most granular unit with a
+    nonzero component, the value is the integer count of that unit
+    ('0.5min' -> (30, 'second')), and the unit labels come from its
+    timedelta_units map (singular; note its us/ns entries deliberately map
+    to millisecond).
     """
-    timedelta_units = {
-        "d": {"nptd64": "D", "unitstr": "day"},
-        "h": {"nptd64": "h", "unitstr": "hour"},
-        "t": {"nptd64": "m", "unitstr": "minute"},
-        "min": {"nptd64": "m", "unitstr": "minute"},
-        "s": {"nptd64": "s", "unitstr": "second"},
-        "l": {"nptd64": "ms", "unitstr": "millisecond"},
-        "ms": {"nptd64": "ms", "unitstr": "millisecond"},
-        "u": {"nptd64": "us", "unitstr": "microsecond"},
-        "us": {"nptd64": "ms", "unitstr": "millisecond"},
-        "n": {"nptd64": "ns", "unitstr": "nanosecond"},
-        "ns": {"nptd64": "ms", "unitstr": "millisecond"},
-    }
-    td = pd.Timedelta(ping_time_bin)
-    resunit = td.resolution_string.lower()
-    value = int(td / np.timedelta64(1, timedelta_units[resunit]["nptd64"]))
-    return value, timedelta_units[resunit]["unitstr"]
+    ns = _timedelta_ns(ping_time_bin)
+    # (unit ns, value divisor ns, label) from coarsest to finest resolution
+    for unit_ns, div_ns, label in (
+        (86_400 * 10**9, 86_400 * 10**9, "day"),
+        (3_600 * 10**9, 3_600 * 10**9, "hour"),
+        (60 * 10**9, 60 * 10**9, "minute"),
+        (10**9, 10**9, "second"),
+        (10**6, 10**6, "millisecond"),
+        (10**3, 10**6, "millisecond"),
+        (1, 10**6, "millisecond"),
+    ):
+        if ns % unit_ns == 0:
+            return ns // div_ns, label
+    raise AssertionError("unreachable: every ns count divides by 1")
 
 
 def get_distance_from_latlon(ds_Sv: Dataset) -> np.ndarray:

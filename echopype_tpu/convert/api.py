@@ -146,7 +146,7 @@ def _should_swap(use_swap, ed) -> bool:
 def _spill_to_swap(ed, min_bytes: int = 16_384):
     """Back large sample arrays with disk memmaps to bound host RAM.
 
-    TPU-native out-of-core tier (parse_base.py:202 equivalent): instead of
+    Out-of-core tier (parse_base.py:202 equivalent): instead of
     temp-zarr + dask handles, large variables become ``np.memmap`` views so
     downstream group access streams from disk; EchoData owns the files and
     deletes them via cleanup_swap_files()/__del__.

@@ -1,7 +1,7 @@
 """EK60 .raw parser: columnar decode into padded per-channel arrays.
 
 Capability parity: echopype/convert/parse_ek60.py + the RAW0/CON0/NME paths of
-parse_base.py:360-686.  TPU-native redesign: no per-datagram Python loop —
+parse_base.py:360-686.  Columnar redesign: no per-datagram Python loop —
 one framing scan builds a columnar index; RAW0 headers decode in one
 structured gather; sample payloads land directly in NaN-padded
 ``[ping, range_sample]`` float32 arrays (power already scaled by INDEX2POWER,

@@ -1,7 +1,7 @@
 """EK80 .raw parser: columnar RAW3/RAW4/XML0/FIL1/MRU decode.
 
 Capability parity: echopype/convert/parse_ek80.py + the EK80 paths of
-parse_base.py:415-655.  TPU-native redesign: one framing scan builds the
+parse_base.py:415-655.  Columnar redesign: one framing scan builds the
 datagram index; RAW3 headers decode in one structured gather; XML parameter
 payloads are parsed once per distinct byte string (they repeat per ping) and
 bound to following RAW3/RAW4 rows positionally; sample payloads land in

@@ -8,7 +8,7 @@ every datagram is framed as::
 Timestamps are 64-bit counts of 100ns ticks since the NT epoch (1601-01-01),
 split little-end-first (ek_date_conversion.py:26-55).
 
-TPU-native redesign: instead of a per-datagram Python object loop, the file is
+Columnar redesign: instead of a per-datagram Python object loop, the file is
 read (or mmapped) once and a single cheap scan builds a **columnar index**
 (numpy arrays of offsets/sizes/types/timestamps).  All subsequent decoding is
 vectorized gathers over that index — the decode cost scales with numpy
@@ -22,6 +22,10 @@ import struct
 from dataclasses import dataclass
 
 import numpy as np
+
+from ...utils.log import _init_logger
+
+logger = _init_logger(__name__)
 
 # seconds between 1601-01-01 and 1970-01-01
 _NT_UNIX_DELTA_S = 11644473600
@@ -106,7 +110,10 @@ def scan_datagrams(buf: bytes, resync: bool = True, use_native: bool = True) -> 
             result = scan_datagrams_native(buf, resync=resync)
         except ValueError:
             raise CorruptDatagramError("bad framing (native scanner)") from None
-        except Exception:  # noqa: BLE001 - any native issue falls back to Python
+        except Exception as e:  # noqa: BLE001 - any native issue falls back to Python
+            logger.warning(
+                f"native datagram scanner failed ({e!r}); using the Python scanner"
+            )
             result = None
         if result is not None:
             offsets, sizes, type_codes, ts_ns = result

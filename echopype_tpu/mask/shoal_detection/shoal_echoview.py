@@ -4,7 +4,7 @@ Capability parity: echopype/mask/shoal_detection/shoal_echoview.py:7 (echopy):
 threshold -> drop small candidates -> link components within a search box ->
 drop small linked shoals.
 
-TPU-first rework (round 3): component extents come from labeled min/max
+Vectorized rework (round 3): component extents come from labeled min/max
 reductions (one C pass each, no per-label full-image scans); linking is a
 union-find over slice-local bounding-box neighbourhoods, so total work is
 O(n_pixels + sum of search-box areas) instead of the r2 O(n_label *

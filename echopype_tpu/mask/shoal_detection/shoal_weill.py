@@ -4,7 +4,7 @@ Capability parity: echopype/mask/shoal_detection/shoal_weill.py:6 (echopy):
 threshold, fill short vertical/horizontal gaps (not touching boundaries),
 drop features below minimum extent.
 
-TPU-first rework (round 3): every stage is a vectorized whole-image pass —
+Vectorized rework (round 3): every stage is a vectorized whole-image pass —
 run-length gap filling via cumsum run ids + bincount, component extents via
 labeled reductions — no per-ping or per-label Python loops (the r2
 implementation was O(n_label * n_pixels)).

@@ -7,12 +7,16 @@ datagram stream in one pass; the Python fallback (convert/simrad/framing.py)
 is used when no compiler is available.
 
 The shared library is compiled on demand with g++ into the package directory
-and cached; ``load_native()`` returns None when unavailable.
+and cached under a name keyed on the hash of its source, so the library that
+loads is always built from the source beside it; ``load_native()`` returns
+None when unavailable.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
 import subprocess
 from pathlib import Path
 
@@ -20,31 +24,32 @@ import numpy as np
 
 _HERE = Path(__file__).parent
 _SRC = _HERE / "src" / "ingest.cpp"
-_LIB = _HERE / "_ingest.so"
 
 _lib = None
 _load_attempted = False
 
 
-def _compile() -> bool:
+def library_path() -> Path:
+    """Path of the shared library built from the current ``src/ingest.cpp``."""
+    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    return _HERE / f"_ingest_{digest}.so"
+
+
+def _compile(lib_path: Path) -> bool:
+    # build under a process-private name, then rename: concurrent processes
+    # never load a half-written library
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
     try:
         subprocess.run(
-            [
-                "g++",
-                "-O3",
-                "-shared",
-                "-fPIC",
-                "-std=c++17",
-                str(_SRC),
-                "-o",
-                str(_LIB),
-            ],
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SRC), "-o", str(tmp)],
             check=True,
             capture_output=True,
             timeout=120,
         )
+        os.replace(tmp, lib_path)
         return True
     except (OSError, subprocess.SubprocessError):
+        tmp.unlink(missing_ok=True)
         return False
 
 
@@ -56,11 +61,11 @@ def load_native():
     if _load_attempted:
         return None
     _load_attempted = True
-    if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
-        if not _compile():
-            return None
+    lib_path = library_path()
+    if not lib_path.exists() and not _compile(lib_path):
+        return None
     try:
-        lib = ctypes.CDLL(str(_LIB))
+        lib = ctypes.CDLL(str(lib_path))
     except OSError:
         return None
     lib.ep_scan_datagrams.restype = ctypes.c_int64

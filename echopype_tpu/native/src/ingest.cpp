@@ -26,7 +26,7 @@ inline bool plausible_type(const uint8_t* p) {
 
 inline int32_t read_i32(const uint8_t* buf, int64_t pos) {
     int32_t v;
-    std::memcpy(&v, buf + pos, 4);  // little-endian hosts only (x86/ARM/TPU VM)
+    std::memcpy(&v, buf + pos, 4);  // little-endian hosts only (x86/ARM)
     return v;
 }
 

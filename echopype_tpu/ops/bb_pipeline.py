@@ -36,12 +36,12 @@ def _bb_chunk_sv_impl(
     xi = jnp.where(jnp.isnan(bs_i), 0.0, bs_i)
 
     if do_pc:
-        from .matched_filter import _mxu_conv_real
+        from .matched_filter import _toeplitz_conv_real
 
         lanes_r = jnp.moveaxis(xr, 2, 1).reshape(P * B, R)
         lanes_i = jnp.moveaxis(xi, 2, 1).reshape(P * B, R)
         L = hr.shape[0]
-        re, im = _mxu_conv_real(lanes_r, lanes_i, hr, hi, L - 1, R,
+        re, im = _toeplitz_conv_real(lanes_r, lanes_i, hr, hi, L - 1, R,
                                 precision=precision, block_t=block_t)
         xr = jnp.moveaxis(re.reshape(P, B, R), 1, 2) * inv_norm
         xi = jnp.moveaxis(im.reshape(P, B, R), 1, 2) * inv_norm

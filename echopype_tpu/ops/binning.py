@@ -1,11 +1,10 @@
 """Device kernels for binned echo-integration (MVBS/NASC).
 
 Replaces the reference's flox map-reduce groupby
-(echopype/commongrid/utils.py:504-628).  TPU-native design: **no scatter**.
-XLA lowers scatter-add with colliding indices to a sequential loop on TPU
-(miserably slow); but both grouping axes here are monotone — ping_time is
-sorted and echo_range/depth is monotone along range_sample — so every bin is
-a *contiguous* run.  Contiguous-segment sums are exact prefix sums:
+(echopype/commongrid/utils.py:504-628) without scatter: both grouping axes
+are monotone — ping_time is sorted and echo_range/depth is monotone along
+range_sample — so every bin is a *contiguous* run.  Contiguous-segment sums
+are exact prefix sums:
 
     cumsum along the axis  ->  gather at bin-boundary positions  ->  diff
 
@@ -25,16 +24,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Data x 0/1-membership dot precision (shared policy; parallel/pipeline.py
-# imports this).  The TPU MXU's DEFAULT bf16 pass quantizes the DATA operand
-# to ~1e-3 relative (measured on-chip) vs the <=1e-5 dB bin contract, so the
-# data side must be exact.  Per-operand tuples ARE honored numerically on
-# this chip — measured error floors: DEFAULT 9e-4, (HIGH,DEFAULT) 2.4e-6,
-# (HIGHEST,DEFAULT) 4.3e-7, HIGHEST 3.0e-7 relative — but the tuple gave NO
-# measured time advantage over plain HIGHEST in the fused kernels (2.83 ms
-# either way at the bench shape).  (HIGHEST, DEFAULT) is kept as the
-# statement of intent: the 0/1 matrix needs only one exact bf16 pass.
-_P_DATA_MASK = (jax.lax.Precision.HIGHEST, jax.lax.Precision.DEFAULT)
+# Precision of every data x 0/1-membership dot (parallel/pipeline.py imports
+# it).  A DEFAULT float32 dot may run in reduced precision on an accelerator
+# (TF32, a 10-bit mantissa, on NVIDIA GPUs), which quantizes the bin sums far
+# beyond the <=1e-5 dB contract; HIGHEST keeps them at full float32.  The
+# 0/1 operand is exact either way.
+_DOT_PRECISION = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "er_is_uniform",
@@ -109,19 +104,17 @@ def blocked_banded_segment_sum(vals, bounds, n_r: int, G: int):
              block may contain two distinct boundaries.
 
     Equivalent to ``dot(vals, M)`` with the 0/1 banded membership M, but the
-    range axis first reduces in exact f32 on the VPU over static G-blocks
+    range axis first reduces in exact f32 elementwise over static G-blocks
     (plus a sibling *left-partial* reduce at each block's single interior
-    boundary), so the MXU only reassembles [C,P,N/G] block sums through two
+    boundary), so the dot only reassembles [C,P,N/G] block sums through two
     0/1 matrices: full-block membership, and the left/right-part selectors
     of the two edge blocks.
 
-    MEASURED OUTCOME (v5e, bench workload, round 4): 8.7 ms/step vs 2.8 ms
-    for the plain exact dot — a documented NEGATIVE result.  XLA lowers the
-    [C,P,B,G] reshape + minor-axis (lane-local) reduces as materialized
-    passes instead of fusing them into the elementwise producer, so the
-    1/G MAC saving is swallowed by ~3x the HBM traffic.  Kept (with an
-    integer-exact property test) because the decomposition is correct and
-    the trade-off may invert on backends where segmented lane reduces fuse.
+    An alternative to the plain banded dot, selected by ``block_g`` in
+    :func:`parallel.pipeline.sv_mvbs_window_partials_uniform` and off by
+    default: it pays only where the [C,P,B,G] reshape and its minor-axis
+    reduces fuse into the elementwise producer; otherwise the 1/G saving in
+    multiply-adds costs extra passes over memory.
 
     Decomposition per bin b = [lo, hi):
       left  part: [lo, min(hi, ceil_G(lo)))   — inside block floor(lo/G)
@@ -179,9 +172,9 @@ def blocked_banded_segment_sum(vals, bounds, n_r: int, G: int):
     dn = (((2,), (1,)), ((0,), (0,)))
     return (
         jax.lax.dot_general(sB, M1, dn, preferred_element_type=jnp.float32,
-                            precision=_P_DATA_MASK)
+                            precision=_DOT_PRECISION)
         + jax.lax.dot_general(sL, M2, dn, preferred_element_type=jnp.float32,
-                              precision=_P_DATA_MASK)
+                              precision=_DOT_PRECISION)
     )
 
 
@@ -257,14 +250,14 @@ def banded_x_reduce(blocks, x_rel, n_x_window: int):
 
     x_rel: sorted i32 [P] window-relative bin ids (ids >= n_x_window fall
     past the last boundary and are ignored — park padded pings there).  Each
-    output bin is an independent MXU accumulation over its own pings, unlike
+    output bin is an independent dot accumulation over its own pings, unlike
     the prefix-sum reduction whose f32 cumsum cancels catastrophically for a
     quiet bin following loud pings (and whose counts saturate past 2^24).
     Bin MEMBERSHIP and counts are therefore invariant to how a stream was
     chunked or sharded; value sums are chunk-invariant to f32 reassociation
-    (a bin straddling a chunk boundary sums two f32 partials — measured
-    ~4e-5 dB between chunkings on ~10^3-sample bins, benchmarks/
-    chip_parity.py), with the host combining partials in f64.
+    (a bin straddling a chunk boundary sums two f32 partials, ~4e-5 dB
+    between chunkings on ~10^3-sample bins), with the host combining
+    partials in f64.
     Returns [C, n_x_window, K].
     """
     P = blocks.shape[1]
@@ -275,7 +268,7 @@ def banded_x_reduce(blocks, x_rel, n_x_window: int):
     Mx = ((p_ids >= xb[None, :-1]) & (p_ids < xb[None, 1:])).astype(jnp.float32)
     dn = (((1,), (0,)), ((), ()))
     out = jax.lax.dot_general(blocks, Mx, dn, preferred_element_type=jnp.float32,
-                              precision=_P_DATA_MASK)
+                              precision=_DOT_PRECISION)
     return jnp.moveaxis(out, 2, 1)
 
 
@@ -303,7 +296,7 @@ def _uniform_bin_matmul(vals3, er_grid, r_edges, closed: str):
 
     Membership is computed directly against the channel's range grid
     (er_grid [C, R], NaN -> no bin): exact and cancellation-free — each bin
-    accumulates only its own samples on the MXU.
+    accumulates only its own samples.
     """
     eg = jnp.where(jnp.isnan(er_grid), jnp.inf, er_grid)[:, :, None]  # [C,R,1]
     if closed == "right":
@@ -313,7 +306,7 @@ def _uniform_bin_matmul(vals3, er_grid, r_edges, closed: str):
     M = M.astype(jnp.float32)
     dn = (((2,), (1,)), ((0,), (0,)))
     return jax.lax.dot_general(vals3, M, dn, preferred_element_type=jnp.float32,
-                               precision=_P_DATA_MASK)
+                               precision=_DOT_PRECISION)
 
 
 @partial(jax.jit, static_argnames=("n_x_window", "skipna", "closed", "uniform_er"))
@@ -548,7 +541,7 @@ def windowed_partials_np(
     """(sums, counts, nan_counts) f8 via the chunk-windowed matmul reduction.
 
     Same membership as binned_sum_partials/x_bounds but each bin accumulates
-    independently on the MXU — no prefix-sum cancellation for a quiet bin
+    independently in a dot — no prefix-sum cancellation for a quiet bin
     after loud pings (see banded_x_reduce), bounded mask size via chunking.
     The range axis likewise takes the cancellation-free matmul path whenever
     the range grid is ping-invariant (er_is_uniform); a ping-varying grid

@@ -9,12 +9,11 @@ echopype/calibrate/calibrate_ek.py:79-206)::
 with r_tvg the TVG-corrected range (range.py:160-201) and
 CSv = 10log10(Pt) + 2G + psi + 10log10(lambda^2 tau c / (32 pi^2)).
 
-TPU-native design: the per-(channel,ping) scalar algebra (CSv, TVG shift,
+Design: the per-(channel,ping) scalar algebra (CSv, TVG shift,
 absorption) is folded on the host in float64 into three small [C,P] arrays;
 the device kernel is ONE fused elementwise pass over the [C,P,R] power block
 that reconstructs range from iota (never materializing a range cube in HBM),
-so the op runs at HBM-bandwidth speed-of-light: reads power once, writes Sv
-and echo_range once.
+so the op reads power once and writes Sv and echo_range once.
 """
 
 from __future__ import annotations

@@ -3,7 +3,9 @@
 The workload's parallel axes (SURVEY.md §2.6): ping_time is the long axis
 (data/sequence parallelism analog) and channel is small (tensor-parallel
 analog).  A (ping, channel) mesh shards the [C, P, R] blocks so range stays
-contiguous per chip — collectives only carry binned partial sums over ICI.
+contiguous per device — collectives only carry binned partial sums.  The
+mesh is a plain reshape of the device list: it assumes no interconnect
+topology.
 """
 
 from __future__ import annotations

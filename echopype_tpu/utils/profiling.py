@@ -1,7 +1,7 @@
 """Per-stage timing and JAX profiler hooks.
 
 The reference has no in-repo observability beyond logging (SURVEY.md §5);
-this module adds the TPU-side equivalents: a stage timer that aggregates
+this module adds the device-side equivalents: a stage timer that aggregates
 wall/device time per pipeline stage, and optional JAX profiler traces.
 """
 

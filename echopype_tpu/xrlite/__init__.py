@@ -1,7 +1,7 @@
 """xrlite: a minimal, dependency-free labeled-array layer.
 
 The reference framework (echopype) exposes xarray Datasets/DataArrays at every API
-boundary.  This TPU-native rebuild keeps that labeled-array UX at the *boundary*
+boundary.  This rebuild keeps that labeled-array UX at the *boundary*
 only — internals are plain jax/numpy arrays moving through jit-compiled kernels —
 so all we need is a small, predictable labeled-array core:
 

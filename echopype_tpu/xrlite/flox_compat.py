@@ -15,7 +15,7 @@ of flox they use:
   matching what the reference reads back (``raw_MVBS.ping_time_bins``),
 - datetime64 inputs reduced through int64 nanoseconds (flox's datetime mean).
 
-This is host-side oracle plumbing, not a compute path: the TPU pipeline bins
+This is host-side oracle plumbing, not a compute path: the device pipeline bins
 through the windowed-matmul kernels in ``ops``/``parallel``.
 """
 

@@ -149,6 +149,7 @@ def write_ek60_raw(
     jitter_config=False,
     jitter_raw0=False,
     nmea_types=None,
+    nmea_track=None,
 ):
     """Write a synthetic multi-channel EK60 file; returns ground-truth dict.
 
@@ -165,6 +166,9 @@ def write_ek60_raw(
         heave/roll/pitch/heading) per channel per ping.
     nmea_types : optional list of sentence types (subset of GGA/GLL/RMC) to
         randomize the NMEA stream over (default: fixed GGA).
+    nmea_track : optional (lat0, lon0, dlat_per_ping) in degrees — GGA fixes
+        along a straight northward track, lat = lat0 + dlat_per_ping * p at
+        ping p (a vessel underway; the default fixes are not a track).
     """
     rng = np.random.default_rng(seed)
     txs = [
@@ -259,6 +263,13 @@ def write_ek60_raw(
                 else:  # RMC
                     sent = (f"$GPRMC,120000,A,{lat_s},{ns_h},{lon_s},{ew_h},"
                             f"022.4,084.4,230394,003.1,W")
+            elif nmea_track is not None:
+                lat = nmea_track[0] + nmea_track[2] * p
+                lon = nmea_track[1]
+                lat_s = f"{int(abs(lat)):02d}{(abs(lat) % 1) * 60:07.4f}"
+                lon_s = f"{int(abs(lon)):03d}{(abs(lon) % 1) * 60:07.4f}"
+                sent = (f"$GPGGA,120000,{lat_s},{'N' if lat >= 0 else 'S'},"
+                        f"{lon_s},{'E' if lon >= 0 else 'W'},1,08,0.9,5.0,M,,M,,")
             else:
                 sent = f"$GPGGA,120000,{30:02d}{p:02d}.5000,N,{122:03d}{p:02d}.2500,W,1,08,0.9,5.0,M,,M,,"
             chunks.append(make_nme0(ts, sent))

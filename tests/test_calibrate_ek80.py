@@ -259,7 +259,7 @@ class TestPowerModeWbtTau:
 
 class TestMxuConvFallback:
     def test_mxu_conv_matches_f64_host(self):
-        """The f32 MXU Toeplitz path (the only device path since round 4 —
+        """The f32 Toeplitz path (the only device path since round 4 —
         the complex64 FFT branch was removed for its eps*spectrum leakage)
         matches the exact f64 host convolution."""
         import numpy as _np
@@ -292,13 +292,13 @@ class TestMxuConvFallback:
         f64 time-domain convolution truncated at [L-1:]."""
         import numpy as _np
 
-        from echopype_tpu.ops.matched_filter import _mxu_conv_real
+        from echopype_tpu.ops.matched_filter import _toeplitz_conv_real
 
         rng = _np.random.default_rng(L)
         x = (rng.normal(size=(P, R)) + 1j * rng.normal(size=(P, R)))
         h = (rng.normal(size=L) + 1j * rng.normal(size=L))
         expected = _np.stack([_np.convolve(x[p], h)[L - 1 : L - 1 + R] for p in range(P)])
-        re, im = _mxu_conv_real(
+        re, im = _toeplitz_conv_real(
             _np.ascontiguousarray(x.real, "f4"), _np.ascontiguousarray(x.imag, "f4"),
             _np.ascontiguousarray(h.real, "f4"), _np.ascontiguousarray(h.imag, "f4"),
             L - 1, R,
@@ -353,7 +353,7 @@ class TestThreeSectorComplex:
 
 class TestConvPrecisionKnob:
     def test_set_conv_precision(self):
-        """The MXU-conv speed/accuracy knob accepts names and Precision values
+        """The device-conv speed/accuracy knob accepts names and Precision values
         and the conv path still matches the FFT path at any setting on CPU."""
         import jax
         import numpy as np

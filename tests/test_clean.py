@@ -240,7 +240,7 @@ class TestDetectTransient:
 
 
 class TestGridFastPath:
-    """MXU band-matmul fast path (ping-invariant grid) vs the gather kernel."""
+    """Band-matmul fast path (ping-invariant grid) vs the gather kernel."""
 
     def test_pool_grid_matches_gather(self):
         ds = make_sv(n_ch=2, n_ping=25, n_r=30)

@@ -64,7 +64,7 @@ class TestShardedPipeline:
         np.testing.assert_allclose(np.asarray(mvbs), mvbs_ref, rtol=1e-4, atol=1e-4)
 
     def test_mxu_core_matches_cumsum_core(self):
-        """The MXU banded-matmul binning equals the cumsum+gather binning."""
+        """The banded-matmul binning equals the cumsum+gather binning."""
         from echopype_tpu.parallel.pipeline import sv_mvbs_core, sv_mvbs_core_mxu
 
         power, dr, tvg, ab, off, x_idx, r_edges, n_x, n_r = make_inputs(C=3, Pn=48, R=96)
@@ -92,20 +92,6 @@ class TestShardedPipeline:
         sv2, s2, c2 = sv_mvbs_core_ex60(power, dr, ab, off, x_idx, r_edges, n_x, n_r)
         np.testing.assert_allclose(np.asarray(sv2), np.asarray(sv1), rtol=1e-4, atol=2e-4)
         np.testing.assert_allclose(np.asarray(s2), np.asarray(s1), rtol=1e-3, atol=1e-6)
-
-    def test_pallas_core_matches_mxu_interpret(self):
-        """Single-pass Pallas kernel parity (interpret mode on CPU)."""
-        from echopype_tpu.ops.pallas_pipeline import sv_mvbs_core_pallas
-        from echopype_tpu.parallel.pipeline import sv_mvbs_core_mxu
-
-        power, dr, tvg, ab, off, x_idx, r_edges, n_x, n_r = make_inputs(C=2, Pn=40, R=256)
-        power[0, 3, 200:] = np.nan
-        sv1, s1, c1 = sv_mvbs_core_mxu(power, dr, tvg, ab, off, x_idx, r_edges, n_x, n_r)
-        sv2, s2, c2 = sv_mvbs_core_pallas(
-            power, dr, tvg, ab, off, x_idx, r_edges, n_x, n_r, tile_p=8, interpret=True
-        )
-        np.testing.assert_allclose(np.asarray(sv2), np.asarray(sv1), rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(s2), np.asarray(s1), rtol=1e-4, atol=1e-6)
 
     def test_3d_mesh_matches_single_device(self):
         """(ping, channel, range) sharding produces identical MVBS bins."""
@@ -142,33 +128,6 @@ class TestMvbsOnlyStep:
         np.testing.assert_allclose(
             np.asarray(mvbs_lean), np.asarray(mvbs_full), rtol=1e-6, atol=1e-6
         )
-
-
-class TestMvbsPallasKernel:
-    def test_interpret_parity_with_mxu_core(self):
-        """MVBS-only Pallas kernel (interpret mode) matches the XLA core."""
-        from echopype_tpu.ops.pallas_pipeline import mvbs_core_pallas
-        from echopype_tpu.parallel.pipeline import sv_mvbs_core_mxu
-
-        power, dr, tvg, ab, off, x_idx, r_edges, n_x, n_r = make_inputs()
-        power = np.ascontiguousarray(power[:, :96])  # multiple of 8
-        dr, tvg, ab, off = (a[:, :96] for a in (dr, tvg, ab, off))
-        x_idx = x_idx[:96]
-        power[0, 3, 20:] = np.nan  # ragged ping
-        _, s_ref, c_ref = sv_mvbs_core_mxu(power, dr, tvg, ab, off, x_idx, r_edges, n_x, n_r)
-        s, c = mvbs_core_pallas(power, dr, tvg, ab, off, x_idx, r_edges, n_x, n_r,
-                                interpret=True)
-        np.testing.assert_allclose(np.asarray(c), np.asarray(c_ref), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(s), np.asarray(s_ref), rtol=5e-4)
-
-    def test_pad_fallback_odd_ping_count(self):
-        from echopype_tpu.ops.pallas_pipeline import mvbs_core_pallas
-
-        power, dr, tvg, ab, off, x_idx, r_edges, n_x, n_r = make_inputs()
-        s, c = mvbs_core_pallas(power[:, :91], dr[:, :91], tvg[:, :91], ab[:, :91],
-                                off[:, :91], x_idx[:91], r_edges, n_x, n_r, interpret=True)
-        assert np.asarray(s).shape == (power.shape[0], n_x, n_r)
-        assert np.isfinite(np.asarray(s)).any()
 
 
 class TestClosedCountsCore:
@@ -245,46 +204,11 @@ class TestUniformFastPath:
         )
 
 
-def test_pallas_window_interpret_parity():
-    """The fused Pallas window kernel (kept as a documented negative result:
-    the op is transcendental-bound, so full fusion matched XLA speed) agrees
-    with the XLA window kernel in interpret mode."""
-    from echopype_tpu.ops.pallas_window import window_partials_pallas
-    from echopype_tpu.parallel.pipeline import sv_mvbs_window_partials
-
-    rng = np.random.default_rng(0)
-    C, P, R = 2, 128, 256
-    n_x, n_r = 4, 5
-    power = rng.integers(-12000, -2000, (C, P, R), dtype=np.int16)
-    dr = np.full((C, P), 0.19, "f4")
-    shift = 2 * dr
-    ab = np.full((C, P), 0.01, "f4")
-    off = rng.normal(-30, 2, (C, P)).astype("f4")
-    vl = rng.integers(R // 2, R + 1, (C, P)).astype("i4")
-    x_rel = np.sort(rng.integers(0, n_x, P)).astype("i4")
-    r_edges = np.linspace(0, 0.19 * R, n_r + 1).astype("f4")
-    k0 = np.maximum(
-        np.floor(shift.astype("f8") / dr.astype("f8")) + 1, 0
-    ).astype("f4")
-    bounds = np.clip(
-        np.ceil(r_edges[None, :].astype("f8") / dr[:, 0:1].astype("f8")), 0, R
-    ).astype("f4")
-    s_p, c_p = window_partials_pallas(
-        power, dr, shift, ab, off, k0, vl.astype("f4"), x_rel, bounds,
-        n_x, n_r, tile_p=64, interpret=True,
-    )
-    s_x, c_x = sv_mvbs_window_partials(
-        power, dr, shift, ab, off, vl, x_rel, r_edges, n_x, n_r
-    )
-    np.testing.assert_array_equal(np.asarray(c_p), np.asarray(c_x))
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_x), rtol=3e-6)
-
-
 class TestRefineK0:
     def test_smallest_k_strictly_past_shift(self):
         """_refine_k0 must return the smallest k >= 0 with k*dr > shift on the
-        f32 sample grid, even when floor(shift/dr) is off by one ULP (the TPU
-        reciprocal-division knife edge; CPU division is exact, so we perturb
+        f32 sample grid, even when floor(shift/dr) is off by one ULP (a backend
+        that lowers x/y as x*reciprocal(y); CPU division is exact, so we perturb
         the quotient by hand to model both failure directions)."""
         import jax.numpy as jnp
         from echopype_tpu.parallel.pipeline import _refine_k0
@@ -318,8 +242,9 @@ class TestRefineK0:
 
 
 class TestBlockedBandedSegmentSum:
-    """Exact-f32 blocked segment sum (ops/binning.py — kept as a documented
-    negative result on TPU; the decomposition itself must stay correct)."""
+    """Exact-f32 blocked segment sum (ops/binning.py, an alternative to the
+    plain banded dot selected by block_g): the decomposition must stay
+    exact."""
 
     def test_integer_exact_property(self):
         from echopype_tpu.ops.binning import (
@@ -384,8 +309,8 @@ class TestBlockedBandedSegmentSum:
 
 
 class TestUniformKernelVariants:
-    """Transposed and Pallas bf16x3 twins of the uniform survey kernel —
-    both documented negative results on this chip, kept with parity pins."""
+    """Transposed (ping-minor) twin of the uniform survey kernel, kept with
+    a parity pin."""
 
     def _inputs(self):
         rng = np.random.default_rng(3)
@@ -412,34 +337,6 @@ class TestUniformKernelVariants:
         np.testing.assert_array_equal(np.asarray(c0), np.asarray(ct))
         np.testing.assert_allclose(np.asarray(st), np.asarray(s0),
                                    rtol=2e-6, atol=1e-30)
-
-    def test_pallas_uniform_interpret_parity(self):
-        from echopype_tpu.ops.pallas_window import window_partials_pallas_uniform
-        from echopype_tpu.parallel.pipeline import (
-            _refine_bounds, _refine_k0, sv_mvbs_window_partials_uniform)
-
-        power, dr, tvg, ab, off, vl, x_rel, r_edges, W, n_r = self._inputs()
-        C, Pn, R = power.shape
-        args = [jnp.asarray(a) for a in (power, dr, tvg, ab, off, vl, x_rel, r_edges)]
-        s0, c0 = sv_mvbs_window_partials_uniform(*args, W, n_r)
-        # host rows: spreading log (k0 folded via -inf), 2*r_tvg, clipped bounds
-        dr0, sh0 = jnp.asarray(dr[:, 0]), jnp.asarray(tvg[:, 0])
-        k = jnp.arange(R, dtype=jnp.float32)[None, :]
-        rt = k * dr0[:, None] - sh0[:, None]
-        sprd = 20.0 * jnp.log10(jnp.maximum(rt, 1e-20))
-        k0 = _refine_k0(jnp.floor(sh0 / dr0) + 1.0, dr0, sh0)
-        sprd = jnp.where(k >= k0[:, None], sprd, -jnp.inf)
-        edges = jnp.asarray(r_edges)[None, :]
-        bounds = jnp.clip(
-            _refine_bounds(jnp.ceil(edges / dr0[:, None]), dr0, edges),
-            k0[:, None], R)
-        s1, c1 = window_partials_pallas_uniform(
-            jnp.asarray(power), sprd, 2.0 * rt, jnp.asarray(ab),
-            jnp.asarray(off), jnp.asarray(vl.astype("f4")),
-            jnp.asarray(x_rel), bounds, W, n_r, tile_p=128, interpret=True)
-        np.testing.assert_array_equal(np.asarray(c0), np.asarray(c1))
-        np.testing.assert_allclose(np.asarray(s1), np.asarray(s0),
-                                   rtol=3e-6, atol=1e-30)
 
 
 class TestHostClosedCounts:
